@@ -1,9 +1,9 @@
 """
-audio_analysis_tpu — a TPU-native (JAX/XLA/Pallas) audio-analysis framework.
+audio_analysis_tpu — an accelerator-native (JAX/XLA) audio-analysis framework.
 
 A from-scratch rebuild of the capabilities of kianmcevoy/audio_analysis
 (an offline, deterministic, IR-centric audio analysis + test-signal toolkit;
-see /root/reference/README.md:1-8) designed TPU-first:
+see the reference README.md:1-8) designed accelerator-first:
 
 - every DSP primitive lives once in `ops/` as a batched, mask-based, jit-safe
   kernel (the reference copy-pasted its STFT/smoothing/fit helpers per module,
@@ -18,7 +18,7 @@ see /root/reference/README.md:1-8) designed TPU-first:
 
 Layout:
   io/        host-side WAV + bundle-contract I/O (NumPy only)
-  ops/       the batched kernel library (JAX + Pallas)
+  ops/       the batched kernel library (plain JAX, compiled by XLA)
   analyses/  reference-parity analysis modules (settings dataclasses,
              per-channel entrypoints, plotting, deterministic text summaries)
   engine/    fused batched analysis engine + mesh sharding

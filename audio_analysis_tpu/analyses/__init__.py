@@ -1,16 +1,5 @@
-"""Reference-parity analysis modules (one per CLI command), built on ops/."""
+"""Reference-parity analysis modules (one per CLI command), built on ops/.
 
-from audio_analysis_tpu.analyses import (  # noqa: F401
-    decay,
-    deconvolve,
-    diffusion,
-    filterplot,
-    frequency_response,
-    group_delay,
-    impulse_response,
-    modalcloud,
-    rt60bands,
-    spectrogram,
-    waterfall,
-    zplane,
-)
+Import the modules themselves (`from audio_analysis_tpu.analyses import
+decay`); most of them plot and need matplotlib, so none is imported here.
+"""

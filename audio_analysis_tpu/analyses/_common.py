@@ -172,7 +172,7 @@ class FileDsp:
         key = (tkey, int(n_fft), int(hop_length), bool(use_hann_window), float(floor_db))
         if key not in self._stft:
             a = self.aligned(*tkey)
-            # MXU-factored frame FFT (ops/mxfft) — same win as the engine's
+            # matmul-factored frame FFT (ops/mxfft), as in the engine's
             # STFT blocks; summaries stay within golden-test tolerance
             self._stft[key] = stft_ops.stft_mag_db(
                 a.samples, a.length, key[1], key[2], key[3], key[4], fft_impl="mx"

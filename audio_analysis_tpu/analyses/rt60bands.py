@@ -7,7 +7,7 @@ masks, the same consistent full-band trim before per-band EDC
 (rt60bands.py:334-360), the bar-vs-line plot switch at 6 bands
 (rt60bands.py:491) and the same tabular text summary (rt60bands.py:627-666).
 
-TPU-first difference: ALL bands are filtered with one batched irfft and all
+Batched difference: ALL bands are filtered with one batched irfft and all
 band EDCs/fits evaluate as one (bands,) batch (the reference loops bands,
 running a full-length FFT per band, rt60bands.py:362-406).
 """

@@ -16,21 +16,15 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional, Tuple
 
-import matplotlib.pyplot as plt
 import numpy as np
 
 from audio_analysis_tpu.analyses._common import FileDsp, single_channel_dsp, suffixed_png
 from audio_analysis_tpu.ops import display as ops_display
 from audio_analysis_tpu.ops import logfreq, stft
-from audio_analysis_tpu.plot import (
-    DEFAULT_DPI,
-    DEFAULT_FIGURE_SIZE,
-    apply_log_hz_xaxis,
-    create_figure_and_axis,
-    finalize_and_show_or_save,
-    hz_major_ticks,
-    hz_tick_formatter,
-)
+
+# The figure functions import audio_analysis_tpu.plot (matplotlib) when they
+# run: the engine report's waterfall summary uses this module's settings and
+# slice selection without plotting.
 
 
 @dataclass(frozen=True)
@@ -308,6 +302,16 @@ def plot_waterfall_figure(
     plot_settings: WaterfallPlotSettings,
     title: Optional[str] = None,
 ):
+    from audio_analysis_tpu.plot import (
+        DEFAULT_DPI,
+        DEFAULT_FIGURE_SIZE,
+        apply_log_hz_xaxis,
+        create_figure_and_axis,
+        hz_major_ticks,
+        hz_tick_formatter,
+        plt,
+    )
+
     style = str(plot_settings.style).lower()
     nyquist = 0.5 * float(result.sample_rate_hz)
     f_min = float(np.clip(analysis_settings.f_min_hz, 1.0, nyquist))
@@ -436,7 +440,7 @@ def render_waterfall_plots(
         )
         if not use_template:
             fig = plot_waterfall_figure(r, analysis_settings, plot_settings, title)
-            finalize_and_show_or_save(fig, output_path, show_interactive)
+            _plot.finalize_and_show_or_save(fig, output_path, show_interactive)
             continue
 
         def build(r=r, title=title):
@@ -468,6 +472,8 @@ def _update_waterfall_3d_figure(
 ) -> None:
     """Replace the surface collection of a live 3D waterfall figure and
     re-apply the data path of plot_waterfall_figure ("3d" style)."""
+    from audio_analysis_tpu.plot import hz_major_ticks, hz_tick_formatter
+
     axis = state["axis"]
     nyquist = 0.5 * float(result.sample_rate_hz)
     f_min = float(np.clip(analysis_settings.f_min_hz, 1.0, nyquist))

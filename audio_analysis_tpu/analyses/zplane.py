@@ -7,8 +7,8 @@ optional approximate FIR zeros (zplane.py:123-142), RT60-from-pole-radius
 annotation ln(1000)*tau (zplane.py:161-173), unit-circle plot per channel
 `<basename>_zplane_<CH>.png`, summary format (zplane.py:288-302).
 
-TPU split: the heavy Gram accumulation over ~10^6 samples runs on device as
-chunked MXU matmuls (ops.spectral.ar_normal_equations); the tiny (p, p)
+Device/host split: the heavy Gram accumulation over ~10^6 samples runs on
+device as chunked full-f32 matmuls (ops.spectral.ar_normal_equations); the tiny (p, p)
 solve and the complex nonsymmetric root-finding run on the host.
 """
 
@@ -72,7 +72,8 @@ def analyse_zplane_channels(
     """
     All channels' Gram accumulations in one batched device dispatch (the
     heavy part); the tiny (p, p) solves and companion-root finding stay on
-    host per channel (complex eig is not a TPU op — SURVEY hard parts).
+    host per channel (complex nonsymmetric eig stays on the host — SURVEY
+    hard parts).
     """
     import jax.numpy as jnp
 

@@ -4,6 +4,10 @@ CLI for offline analysis — drop-in compatible with the reference's
 subcommands (ir, zplane, groupdelay, bundle, deconvolve, decay, rt60bands,
 fr, filter, spectrogram, diffusion, waterfall, modalcloud, report), flags,
 defaults, and deterministic stdout summaries.
+
+Each subcommand imports its analyses module when it runs: the plotting
+modules need matplotlib, the engine paths (`bundle --no-plots`, `batch
+--no-plots`, `watch`, `compare`) do not.
 """
 
 from __future__ import annotations
@@ -11,81 +15,6 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 from typing import Optional
-
-from audio_analysis_tpu.analyses.decay import (
-    DecayAnalysisSettings,
-    DecayPlotSettings,
-    plot_decay_from_wav_file,
-    summarise_decay_results_text,
-)
-from audio_analysis_tpu.analyses.deconvolve import (
-    DeconvolveSettings,
-    deconvolve_from_wav_files,
-    default_output_ir_path,
-)
-from audio_analysis_tpu.analyses.diffusion import (
-    DiffusionAnalysisSettings,
-    plot_diffusion_from_wav_file,
-    summarise_diffusion_results_text,
-)
-from audio_analysis_tpu.analyses.filterplot import (
-    FilterAnalysisSettings,
-    FilterPlotSettings,
-    plot_filter_response_from_wav_file,
-    summarise_filter_response_results_text,
-)
-from audio_analysis_tpu.analyses.frequency_response import (
-    FrequencyResponseAnalysisSettings,
-    FrequencyResponsePlotSettings,
-    plot_frequency_response_from_wav_file,
-    summarise_frequency_response_results_text,
-)
-from audio_analysis_tpu.analyses.group_delay import (
-    GroupDelayAnalysisSettings,
-    GroupDelayPlotSettings,
-    plot_group_delay_from_wav_file,
-    summarise_group_delay_results_text,
-)
-from audio_analysis_tpu.analyses.impulse_response import (
-    ImpulseResponseViewSettings,
-    plot_ir_from_wav_file,
-)
-from audio_analysis_tpu.analyses.modalcloud import (
-    ModalCloudAnalysisSettings,
-    ModalCloudPlotSettings,
-    plot_modal_cloud_from_wav_file,
-    summarise_modal_cloud_results_text,
-)
-from audio_analysis_tpu.analyses.rt60bands import (
-    Rt60BandsAnalysisSettings,
-    Rt60BandsPlotSettings,
-    plot_rt60_bands_from_wav_file,
-    summarise_rt60_bands_results_text,
-)
-from audio_analysis_tpu.analyses.spectrogram import (
-    SpectrogramAnalysisSettings,
-    SpectrogramPlotSettings,
-    plot_spectrogram_from_wav_file,
-    summarise_spectrogram_results_text,
-)
-from audio_analysis_tpu.analyses.waterfall import (
-    WaterfallAnalysisSettings,
-    WaterfallPlotSettings,
-    plot_waterfall_from_wav_file,
-    summarise_waterfall_results_text,
-)
-from audio_analysis_tpu.analyses.zplane import (
-    ZPlaneAnalysisSettings,
-    ZPlanePlotSettings,
-    plot_zplane_from_wav_file,
-    summarise_zplane_results_text,
-)
-from audio_analysis_tpu.report import (
-    BundleRunSettings,
-    ReportSettings,
-    run_bundle_report,
-    run_report_from_wav_file,
-)
 
 BoolOpt = argparse.BooleanOptionalAction
 
@@ -243,7 +172,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multi-host", dest="multi_host", action="store_true",
                    help="Multi-host engine fast path (text reports): every process "
                         "analyses the taps its devices own over a shared filesystem; "
-                        "process 0 writes the index. Run one process per host.")
+                        "process 0 writes the index. Run one process per host; each "
+                        "owns all of its host's cards.")
     p.add_argument("--coordinator", dest="coordinator", type=str, default=None,
                    help="host:port of the jax.distributed coordinator (with "
                         "--multi-host when the environment doesn't auto-initialize).")
@@ -519,9 +449,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    from audio_analysis_tpu.utils.platform import apply_platform_override
-
-    apply_platform_override()
     args = build_parser().parse_args(argv)
     cmd = str(args.command_name)
 
@@ -533,6 +460,11 @@ def main(argv=None) -> None:
         return not bool(getattr(args, "no_show", False))
 
     if cmd == "ir":
+        from audio_analysis_tpu.analyses.impulse_response import (
+            ImpulseResponseViewSettings,
+            plot_ir_from_wav_file,
+        )
+
         results = plot_ir_from_wav_file(
             wav_file_path=str(args.input_wav_file_path),
             settings=ImpulseResponseViewSettings(
@@ -547,6 +479,12 @@ def main(argv=None) -> None:
         return
 
     if cmd == "deconvolve":
+        from audio_analysis_tpu.analyses.deconvolve import (
+            DeconvolveSettings,
+            deconvolve_from_wav_files,
+            default_output_ir_path,
+        )
+
         output_path = args.output_ir_wav_file_path
         if output_path is None:
             output_path = str(default_output_ir_path(args.recorded_wav_file_path))
@@ -569,6 +507,13 @@ def main(argv=None) -> None:
         return
 
     if cmd == "decay":
+        from audio_analysis_tpu.analyses.decay import (
+            DecayAnalysisSettings,
+            DecayPlotSettings,
+            plot_decay_from_wav_file,
+            summarise_decay_results_text,
+        )
+
         results = plot_decay_from_wav_file(
             input_wav_file_path=str(args.input_wav_file_path),
             analysis_settings=DecayAnalysisSettings(
@@ -589,6 +534,14 @@ def main(argv=None) -> None:
         return
 
     if cmd == "rt60bands":
+        from audio_analysis_tpu.analyses.decay import DecayAnalysisSettings
+        from audio_analysis_tpu.analyses.rt60bands import (
+            Rt60BandsAnalysisSettings,
+            Rt60BandsPlotSettings,
+            plot_rt60_bands_from_wav_file,
+            summarise_rt60_bands_results_text,
+        )
+
         decay_settings = DecayAnalysisSettings(
             trim_to_peak=bool(args.trim_to_peak),
             ignore_leading_seconds=float(args.ignore_leading_seconds),
@@ -630,6 +583,13 @@ def main(argv=None) -> None:
         return
 
     if cmd == "fr":
+        from audio_analysis_tpu.analyses.frequency_response import (
+            FrequencyResponseAnalysisSettings,
+            FrequencyResponsePlotSettings,
+            plot_frequency_response_from_wav_file,
+            summarise_frequency_response_results_text,
+        )
+
         results = plot_frequency_response_from_wav_file(
             input_wav_file_path=str(args.input_wav_file_path),
             analysis_settings=FrequencyResponseAnalysisSettings(
@@ -654,6 +614,13 @@ def main(argv=None) -> None:
         return
 
     if cmd == "filter":
+        from audio_analysis_tpu.analyses.filterplot import (
+            FilterAnalysisSettings,
+            FilterPlotSettings,
+            plot_filter_response_from_wav_file,
+            summarise_filter_response_results_text,
+        )
+
         results = plot_filter_response_from_wav_file(
             input_wav_file_path=str(args.input_wav_file_path),
             analysis_settings=FilterAnalysisSettings(
@@ -678,6 +645,13 @@ def main(argv=None) -> None:
         return
 
     if cmd == "spectrogram":
+        from audio_analysis_tpu.analyses.spectrogram import (
+            SpectrogramAnalysisSettings,
+            SpectrogramPlotSettings,
+            plot_spectrogram_from_wav_file,
+            summarise_spectrogram_results_text,
+        )
+
         dyn = float(args.dynamic_range_db)
         results = plot_spectrogram_from_wav_file(
             input_wav_file_path=str(args.input_wav_file_path),
@@ -703,6 +677,12 @@ def main(argv=None) -> None:
         return
 
     if cmd == "diffusion":
+        from audio_analysis_tpu.analyses.diffusion import (
+            DiffusionAnalysisSettings,
+            plot_diffusion_from_wav_file,
+            summarise_diffusion_results_text,
+        )
+
         results = plot_diffusion_from_wav_file(
             input_wav_file_path=str(args.input_wav_file_path),
             analysis_settings=DiffusionAnalysisSettings(
@@ -723,6 +703,13 @@ def main(argv=None) -> None:
         return
 
     if cmd == "waterfall":
+        from audio_analysis_tpu.analyses.waterfall import (
+            WaterfallAnalysisSettings,
+            WaterfallPlotSettings,
+            plot_waterfall_from_wav_file,
+            summarise_waterfall_results_text,
+        )
+
         results = plot_waterfall_from_wav_file(
             input_wav_file_path=str(args.input_wav_file_path),
             analysis_settings=WaterfallAnalysisSettings(
@@ -760,6 +747,13 @@ def main(argv=None) -> None:
         return
 
     if cmd == "modalcloud":
+        from audio_analysis_tpu.analyses.modalcloud import (
+            ModalCloudAnalysisSettings,
+            ModalCloudPlotSettings,
+            plot_modal_cloud_from_wav_file,
+            summarise_modal_cloud_results_text,
+        )
+
         ylim = None
         if args.ylim_seconds_min is not None and args.ylim_seconds_max is not None:
             ylim = (float(args.ylim_seconds_min), float(args.ylim_seconds_max))
@@ -796,6 +790,13 @@ def main(argv=None) -> None:
         return
 
     if cmd == "zplane":
+        from audio_analysis_tpu.analyses.zplane import (
+            ZPlaneAnalysisSettings,
+            ZPlanePlotSettings,
+            plot_zplane_from_wav_file,
+            summarise_zplane_results_text,
+        )
+
         results = plot_zplane_from_wav_file(
             input_wav_file_path=str(args.input_wav_file_path),
             settings=ZPlaneAnalysisSettings(
@@ -817,6 +818,13 @@ def main(argv=None) -> None:
         return
 
     if cmd == "groupdelay":
+        from audio_analysis_tpu.analyses.group_delay import (
+            GroupDelayAnalysisSettings,
+            GroupDelayPlotSettings,
+            plot_group_delay_from_wav_file,
+            summarise_group_delay_results_text,
+        )
+
         results = plot_group_delay_from_wav_file(
             input_wav_file_path=str(args.input_wav_file_path),
             settings=GroupDelayAnalysisSettings(
@@ -839,6 +847,7 @@ def main(argv=None) -> None:
         return
 
     if cmd == "report":
+        from audio_analysis_tpu.report import ReportSettings, run_report_from_wav_file
         from audio_analysis_tpu.utils.timing import profile_trace
 
         with profile_trace(getattr(args, "profile_dir", None)):
@@ -1033,6 +1042,8 @@ def main(argv=None) -> None:
                     print("Changes flagged vs previous run (see the index) — exiting 3.")
                     raise SystemExit(3)
             return
+
+        from audio_analysis_tpu.report import BundleRunSettings, ReportSettings, run_bundle_report
 
         index = run_bundle_report(
             str(args.bundle_root),

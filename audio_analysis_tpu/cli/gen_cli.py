@@ -229,9 +229,6 @@ def _write_and_report(output_path: Path, generated: sig.GeneratedSignal, channel
 
 
 def main(argv=None) -> None:
-    from audio_analysis_tpu.utils.platform import apply_platform_override
-
-    apply_platform_override()
     args = build_parser().parse_args(argv)
     output_dir = Path(args.output_directory)
     channel_mode = str(args.channel_mode)

@@ -1,14 +1,15 @@
 """
-Multi-host bundle farms (DCN) — the scale-out path beyond one host's chips.
+Multi-host bundle farms — the scale-out path beyond one host's cards.
 
-Single-host multi-chip scaling is engine.mesh (taps data-parallel over ICI).
-For fleets of hosts each with local TPUs, this module wires the standard
-JAX multi-process setup: `jax.distributed.initialize` over the coordination
-network, ONE GLOBAL "taps" mesh spanning every chip of the job (built from
-`jax.devices()`, which is ordered by process), and per-process decode of
+Single-host multi-card scaling is engine.mesh (taps data-parallel over the
+host's cards). For fleets of hosts, this module wires the standard JAX
+multi-process setup: ONE process per host, owning all of that host's cards,
+joined by `jax.distributed.initialize` over the coordination network; ONE
+GLOBAL "taps" mesh spanning every card of the job (built from
+`jax.devices()`, which is ordered by process); and per-process decode of
 only the tap shard this host's devices own — the filesystem bundle contract
-is the data plane, DCN carries coordination plus the all-reduced bundle
-aggregates.
+is the data plane, the network carries coordination plus the all-reduced
+bundle aggregates.
 
 Per-tap metrics are returned for the LOCAL shard (the caller writes its own
 taps' reports); bundle aggregates are computed inside one jitted reduction
@@ -36,9 +37,11 @@ def initialize_multi_host(
     process_id: Optional[int] = None,
 ) -> None:
     """
-    Join this process to a multi-host JAX job. Arguments default to the
-    standard environment variables (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
-    JAX_PROCESS_ID) or the TPU pod auto-detection when all are None.
+    Join this process to a multi-host JAX job: one process per host, which
+    owns all of that host's cards. Arguments default to the standard
+    environment variables (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
+    JAX_PROCESS_ID). Outside a managed cluster JAX cannot detect the job,
+    so give all three (the coordinator as host:port).
     """
     import jax
 
@@ -129,11 +132,6 @@ def analyze_bundle_multi_host(
 
     if config is None:
         config = EngineConfig()
-    # Same shard_map caveat as engine.mesh: the Pallas EDC does not carry
-    # vma metadata under shard_map; the jnp EDC is numerically equivalent.
-    config = dataclasses.replace(config, use_pallas_edc=False)
-    if config.stft_fft_impl == "pallas":
-        config = dataclasses.replace(config, stft_fft_impl="mx")
 
     bundle_root = Path(bundle_root)
     process_id = jax.process_index()

@@ -8,7 +8,7 @@ Layout (recorder.hpp:102-126, bundle.py:9-16 in the reference):
       taps/<name>.wav    stereo PCM16 interleaved
 
 This module reads/writes that contract and provides the batched loader that
-feeds the TPU engine: all taps padded into one (B, N_max, C) float32 array.
+feeds the device engine: all taps padded into one (B, N_max, C) float32 array.
 """
 
 from __future__ import annotations
@@ -202,7 +202,7 @@ def load_bundle_batch(
     num_threads: int = 8,
 ) -> Tuple[BundleMeta, np.ndarray, np.ndarray, List[str]]:
     """
-    Load every tap of a bundle into one padded batch for the TPU engine.
+    Load every tap of a bundle into one padded batch for the device engine.
 
     Returns:
       meta:     BundleMeta

@@ -5,7 +5,7 @@ The native library provides:
 - fast single-file WAV decode (PCM16/PCM24/PCM32/float32) to float32
 - multithreaded batched bundle decode: all taps of a bundle decoded in
   parallel worker threads directly into one padded (B, N_max, C) buffer,
-  ready for device upload (the TPU-native replacement for the reference's
+  ready for device upload (the batched replacement for the reference's
   sequential per-tap scipy reads, bundle.py:56-68)
 - PCM16 WAV encode
 
@@ -134,7 +134,7 @@ def ensure_built(timeout_s: float = 180.0) -> bool:
     """Best-effort: build the native library (`make -C cpp`) if it is not
     loadable yet, then retry the load. Returns available().
 
-    Perf entry points (bench.py, chip_checklist) call this so a fresh
+    Perf entry points (bench.py, chip_smoke.py) call this so a fresh
     checkout measures the native decode path instead of silently falling
     back to the ~10x slower scipy reader. Never raises: when the toolchain
     or Makefile is missing the normal fallback story applies. A failed

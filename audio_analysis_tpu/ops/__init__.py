@@ -12,20 +12,23 @@ diffusion sliding-window autocorr / echo density / corr0 / IACC via FFT
 """
 
 import os as _os
+from pathlib import Path as _Path
 
 import jax as _jax
 
+# <checkout>/.jax_cache: one fixed directory per checkout (listed in
+# .gitignore), so every process of the checkout finds what earlier ones
+# compiled.
+DEFAULT_COMPILATION_CACHE_DIR = _Path(__file__).resolve().parents[2] / ".jax_cache"
+
 
 def _enable_persistent_compilation_cache() -> None:
-    """Reuse compiled programs across processes (TPU compiles are slow)."""
-    cache_dir = _os.environ.get(
-        "AA_TPU_CACHE_DIR", _os.path.expanduser("~/.cache/aa_tpu_xla")
-    )
-    try:
-        _jax.config.update("jax_compilation_cache_dir", cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover — older jax versions
-        pass
+    """Reuse compiled programs across processes. JAX reads
+    JAX_COMPILATION_CACHE_DIR itself; only without it is the checkout's
+    own cache directory set here."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    _jax.config.update("jax_compilation_cache_dir", str(DEFAULT_COMPILATION_CACHE_DIR))
 
 
 _enable_persistent_compilation_cache()

@@ -18,22 +18,6 @@ import jax
 import jax.numpy as jnp
 
 
-def compute_platform() -> str:
-    """The platform the next computation will actually lower for.
-
-    `jax.default_backend()` alone is wrong inside a
-    `jax.default_device(...)` context: a CPU-pinned call in a TPU-default
-    process still reports "tpu", so a Pallas kernel gated on it gets
-    lowered for CPU and fails ("Only interpret mode is supported on CPU
-    backend" — found by the round-5 full-TPU-suite checklist run). The
-    active default_device wins; the process default is the fallback.
-    """
-    dev = jax.config.jax_default_device
-    if dev is not None:
-        return dev.platform
-    return jax.default_backend()
-
-
 @partial(jax.jit, static_argnums=(0, 2))
 def valid_mask(n: int, length: jnp.ndarray, dtype=jnp.float32) -> jnp.ndarray:
     """(..., n) mask: 1 where index < length."""

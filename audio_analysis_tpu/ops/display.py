@@ -19,8 +19,8 @@ Mapping to the hardware (no gathers — see CLAUDE.md kernel map):
   settings-static bin ranges: a shifted-maximum "sparse table" pyramid
   along F (log2(Wmax) levels), then each row's max is the maximum of TWO
   entries — selected with a one-hot MATMUL over the stacked pyramid
-  (selection is linear, so it rides the MXU; a take() would hit the ~100x
-  gather penalty on this chip).
+  (selection is linear, so it is a matmul rather than a gather; whether
+  a take() is faster on the current card is ROADMAP queue 1 item 7).
 - Waterfall needs only its ~18 slice frames: a frames-by-time 0/1 mask
   matmul extracts (C, S, F) directly (reference waterfall.py:220-247
   recomputed the full STFT per channel and sliced on host).
@@ -132,7 +132,7 @@ def _log_row_select(
 
 # one resident device copy of each selection matrix (~60 MB at the default
 # 720 rows x 6 levels x ~1700 bins), shared by every tap of a bundle;
-# bounded FIFO so mixed-rate batch jobs don't grow HBM without limit
+# bounded FIFO so mixed-rate batch jobs don't grow device memory without limit
 _SEL_DEVICE: dict = {}
 _SEL_DEVICE_MAX = 3
 

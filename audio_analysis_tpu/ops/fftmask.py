@@ -213,8 +213,8 @@ def band_decimation_factors(
     twice the band's) alias-free on the decimated grid and bounds the
     measured EDC deviation at ≤ ~0.4 dB — N % k == 0 with N/k even (the
     packed-stereo mirror needs an even length), N/k ≥ `min_length` (fit
-    resolution; the default keeps the Pallas EDC kernel's N % 16384 == 0
-    shape contract for pow-2 N), and k ≤ `max_factor`.
+    resolution; the default keeps N/k a multiple of 16384 for pow-2 N),
+    and k ≤ `max_factor`.
     """
     factors = []
     for row in np.asarray(masks):
@@ -328,7 +328,8 @@ def apply_band_masks(x: jnp.ndarray, masks: jnp.ndarray) -> jnp.ndarray:
     a real, even (conjugate-symmetric) filter commutes with the packing, so
     one c2c fft + one c2c ifft per band yields BOTH channels' band signals
     (real part = L, imag = R). Exact in exact arithmetic; halves the FFT
-    work where the TPU FFT doesn't exploit real-input symmetry.
+    work of a c2c FFT (whether it beats two R2C transforms on the current
+    card is ROADMAP queue 1 item 5).
     """
     kind, spectrum = full_band_spectrum(x)
     return banded_from_spectrum(kind, spectrum, masks, x.shape[-1])

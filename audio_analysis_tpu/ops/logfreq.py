@@ -7,7 +7,7 @@ Covers the reference's duplicated log-frequency helpers:
   [f_min, f_max];
 - geometric log-bin aggregation by linear-magnitude mean
   (modalcloud.py:166-207), expressed as one (bins, F) matrix so the
-  aggregation is a single MXU matmul over all frames.
+  aggregation is a single matmul over all frames.
 """
 
 from __future__ import annotations
@@ -137,6 +137,7 @@ def aggregate_db_to_log_bins(
         mag_lin,
         bin_matrix.T,
         dimension_numbers=(((mag_lin.ndim - 1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     )
     binned = jnp.maximum(binned, 1e-30)

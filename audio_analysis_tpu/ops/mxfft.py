@@ -1,19 +1,15 @@
 """
-MXU-factored FFT: rfft/irfft as two small-DFT matmul stages (the classic
+Matmul-factored FFT: rfft/irfft as two small-DFT matmul stages (the classic
 four-step / Cooley-Tukey N = N1*N2 factorisation).
 
-Why: XLA lowers `jnp.fft.*` onto the TPU's vector unit; the same transform
-expressed as two dense (N1,N1) / (N2,N2) DFT matmuls + a twiddle Hadamard
-runs on the MXU (systolic array) instead. FLOP count is ~13x the ideal
-split-radix FFT, but the MXU absorbs it. Measured on one v5e chip
-(fetch-overhead corrected, batch = one engine chunk's STFT frames):
-  rfft 4096 x 65k frames:  XLA ~44 ms   mx ~32 ms   (~1.4x)
-  rfft 8192 x 33k frames:  XLA ~46 ms   mx ~40 ms   (~1.15x)
-  rfft 2^20 x 128 signals: XLA ~33 ms   mx ~42 ms   (XLA wins; keep XLA)
-So this pays on the batched frame FFTs (the STFT hot path) and loses on
-huge single transforms. The reference does frame-loop `np.fft.rfft` on CPU
-(spectrogram.py:146-155 etc.); this module is TPU-only engineering with no
-reference counterpart.
+Why: a batched frame FFT can be expressed as two dense (N1,N1) / (N2,N2)
+DFT matmuls + a twiddle Hadamard, which runs on the accelerator's matmul
+units instead of its FFT library. FLOP count is ~13x the ideal split-radix
+FFT. Whether that pays on the current card against XLA's FFT (cuFFT on the
+GPU) is an open measurement: the engine selects it per config
+(EngineConfig.stft_fft_impl, default "mx"). Full-signal 2^20 transforms
+always use jnp.fft. The reference does frame-loop `np.fft.rfft` on CPU
+(spectrogram.py:146-155 etc.); this module has no reference counterpart.
 
 Derivation (forward DFT, W_N = exp(-2*pi*i/N), n = N2*a + b, k = N1*d + c):
     X[N1*d + c] = sum_b W_N^{b*c} * (sum_a x[N2*a+b] W_{N1}^{a*c}) * W_{N2}^{b*d}
@@ -27,8 +23,8 @@ For real input only bins k <= N/2 are needed (rfft), which restricts
 stage 2 to d <= N2/2: F_{N2} is sliced to (N2, N2//2+1), halving stage-2
 work. Stage 1 is real @ complex -> two real matmuls.
 
-Numerics: all matmuls run at `jax.lax.Precision.HIGHEST` (true f32
-accumulation on the MXU); max observed error vs np.fft.rfft is ~1e-3
+Numerics: all matmuls run at `jax.lax.Precision.HIGHEST` (full f32
+products and accumulation); max observed error vs np.fft.rfft is ~1e-3
 absolute on unit-scale 2^20-sample signals (relative ~1e-7 at the spectrum
 scale, which grows as sqrt(N)).
 """
@@ -43,12 +39,9 @@ import numpy as np
 
 _PRECISION = jax.lax.Precision.HIGHEST
 
-# On TPU, f32 matmul precision selects the number of bf16 MXU passes:
-# DEFAULT = 1 (bf16 inputs), HIGH = 3 (bf16x3 splitting), HIGHEST = 6
-# (~true f32). Exposed as EngineConfig.stft_fft_precision; chip-measured
-# at engine shapes the pass count is NOT the bottleneck (the stage matmuls
-# are MXU-latency bound) — see docs/PERFORMANCE.md "Round-4 mx-FFT matmul
-# precision investigation" before expecting a win from lowering it.
+# f32 matmul precision, exposed as EngineConfig.stft_fft_precision. On an
+# H100, HIGHEST computes in full f32; HIGH and DEFAULT allow TF32 tensor
+# core products (~10 mantissa bits), which move the modal fits.
 _PRECISIONS = {
     "default": jax.lax.Precision.DEFAULT,
     "high": jax.lax.Precision.HIGH,
@@ -110,7 +103,7 @@ def rfft_mx(
     precision: "str | None" = None,
 ) -> jnp.ndarray:
     """
-    MXU rfft over the last axis: (..., N) float32 -> (..., K) complex64,
+    Matmul rfft over the last axis: (..., N) float32 -> (..., K) complex64,
     K = k_out or N//2+1. N must be a power of two >= 4. Matches
     jnp.fft.rfft(x, n)[..., :k_out] bin order/scaling (same construction,
     fewer stage-2 columns; the different matmul shape reorders accumulation,
@@ -192,7 +185,7 @@ def irfft_mx_at(
     When only M << N output samples are needed (correlation lags: the
     diffusion block wants +-max_lag of an n_fft-point inverse), the direct
     hermitian synthesis  x[m] = (1/n)·sum_k w_k·Re(X[k]·e^{i·2πkm/n})
-    (w = 2 except DC/Nyquist) is an (F, M) matmul on the MXU — no FFT, no
+    (w = 2 except DC/Nyquist) is an (F, M) matmul — no FFT, no
     full-length output, stage cost proportional to M.
     """
     out_indices = np.asarray(out_indices, np.int64)
@@ -222,7 +215,7 @@ def irfft_mx_at(
 
 def irfft_mx(spec: jnp.ndarray, n: int) -> jnp.ndarray:
     """
-    MXU irfft: (..., N//2+1) complex64 -> (..., N) float32, matching
+    Matmul irfft: (..., N//2+1) complex64 -> (..., N) float32, matching
     jnp.fft.irfft(spec, n). Implemented as the conjugate-transposed 4-step
     on the hermitian-extended spectrum, real part only.
     """

@@ -1,16 +1,16 @@
 """
-Sort-free exact percentiles on TPU: order statistics by binary search over
+Sort-free exact percentiles: order statistics by binary search over
 float bit patterns.
 
-Why: `jnp.nanpercentile` sorts, and XLA's TPU sort (bitonic) over the
-group-delay block's (rows, 2^19) bins was the block's entire cost
-(~42 ms / chunk). An exact k-th order statistic needs no sort: map f32 to
+Why: `jnp.nanpercentile` sorts, and a sort over the group-delay block's
+(rows, 2^19) bins was the block's entire cost on the accelerator this was
+first built for (whether it still is on the current card is ROADMAP queue
+1 item 7). An exact k-th order statistic needs no sort: map f32 to
 its order-isomorphic uint32 image (the IEEE sign-magnitude flip), build
 the k-th smallest key bit-by-bit from the MSB with one masked
 `count < candidate` pass per bit, and map the two bracketing order
-statistics back for numpy-style linear interpolation. 32 streaming passes
-over HBM with no data-dependent layout beats the sort at these shapes,
-and the result is exact to the bit.
+statistics back for numpy-style linear interpolation: 32 streaming passes
+over device memory with no data-dependent layout, exact to the bit.
 
 Matches np.nanpercentile(x[valid], q, interpolation="linear") — the
 group_delay summary contract (group_delay.py:210-220) — with one documented
@@ -27,8 +27,8 @@ import jax
 import jax.numpy as jnp
 
 # Plain Python ints, cast inside the jitted bodies: module-level jnp
-# constants would initialise the default (TPU) backend at import time and
-# break device-free imports (the MULTICHIP_r02 failure).
+# constants would initialise the default backend at import time and
+# break device-free imports (tests/test_graft_entry.py).
 _SIGN = 0x80000000
 _INVALID = 0xFFFFFFFF  # sorts past every finite key (= NaN bits, excluded)
 

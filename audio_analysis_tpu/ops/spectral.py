@@ -31,6 +31,8 @@ from audio_analysis_tpu.ops.common import (
     hann_window_dynamic,
 )
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 class SpectrumResult(NamedTuple):
     mag_db: jnp.ndarray  # (..., F)
@@ -197,7 +199,9 @@ def ar_normal_equations(
     x[n] + sum_k a[k] x[n-k] = e[n] (regression build as zplane.py:100-108):
     rows n = p..L-1, row_k = x[n-k], y = -x[n]. The heavy part — the Gram
     matrix over ~10^6 samples — runs as chunked (chunk, p) x (chunk, p)
-    matmuls on the MXU; the tiny (p, p) solve happens on the host in f64.
+    matmuls on the device in full f32 (Precision.HIGHEST: the Gram's
+    conditioning reaches ~1e8, far past what TF32 products keep); the tiny
+    (p, p) solve happens on the host in f64.
     """
     n = x.shape[-1]
     p = int(order)
@@ -220,8 +224,12 @@ def ar_normal_equations(
             gidx = jnp.clip(rows[:, None] - lag_idx[None, :], 0, n - 1)
             a = sig[gidx] * ok[:, None]
             y = -sig[jnp.clip(rows, 0, n - 1)] * ok
-            gram = gram + jnp.dot(a.T, a, preferred_element_type=jnp.float32)
-            moment = moment + jnp.dot(a.T, y, preferred_element_type=jnp.float32)
+            gram = gram + jnp.dot(
+                a.T, a, precision=_HIGHEST, preferred_element_type=jnp.float32
+            )
+            moment = moment + jnp.dot(
+                a.T, y, precision=_HIGHEST, preferred_element_type=jnp.float32
+            )
             return gram, moment
 
         init = (jnp.zeros((p, p), jnp.float32), jnp.zeros((p,), jnp.float32))
@@ -268,7 +276,7 @@ def ar_poles(a: np.ndarray) -> np.ndarray:
     """
     Poles of A(z) = 1 + a1 z^-1 + ... + ap z^-p = roots of
     z^p + a1 z^(p-1) + ... + ap (zplane.py:145-158). Complex nonsymmetric
-    eigensolve — host only (not TPU-supported).
+    eigensolve — host only.
     """
     poly = np.asarray(a, dtype=np.float64)
     while poly.size > 1 and abs(poly[-1]) < 1e-14:

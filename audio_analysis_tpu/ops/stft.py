@@ -45,11 +45,11 @@ def frame_signal(x: jnp.ndarray, n_fft: int, hop: int) -> jnp.ndarray:
     """
     (..., N) -> (..., T, n_fft) "valid" framing.
 
-    TPU note: when hop divides n_fft (all the framework defaults: 4096/512,
+    When hop divides n_fft (all the framework defaults: 4096/512,
     8192/512, diffusion 2400/480...) the frame matrix is assembled from
     n_fft//hop shifted reshapes — static slices + reshapes that XLA turns
     into contiguous copies. frame[k] = concat_j x[(k+j)*hop : (k+j+1)*hop].
-    A generic (T, n_fft) index gather here is the single slowest op on TPU.
+    Other hops fall back to a generic (T, n_fft) index gather.
     """
     n = x.shape[-1]
     t = num_frames_static(n, n_fft, hop)
@@ -81,8 +81,8 @@ def _frame_rfft(
     fft_n1: int | None = None,
     fft_precision: "str | None" = None,
 ) -> jnp.ndarray:
-    """rfft over the last axis; "mx" = MXU-factored matmul FFT (ops/mxfft.py,
-    ~1.4x XLA's VPU FFT on batched 4096-point frames), "xla" = jnp.fft.
+    """rfft over the last axis; "mx" = matmul-factored FFT (ops/mxfft.py),
+    "xla" = jnp.fft.
     `k_out` keeps only the first k_out bins (the mx path skips computing the
     rest; the XLA path slices, which XLA fuses into the consumer); `fft_n1`
     overrides the mx stage split (ignored by the XLA path). The mx
@@ -108,18 +108,7 @@ def _linear_magnitude(
     fft_n1: int | None = None,
     fft_precision: "str | None" = None,
 ) -> jnp.ndarray:
-    """Un-floored |STFT| via the selected implementation. "pallas" uses the
-    fused VMEM kernel when the default backend is TPU and the shape
-    qualifies, else falls back to "mx" (numerically equivalent)."""
-    if fft_impl == "pallas":
-        from audio_analysis_tpu.ops import pallas_stft
-
-        from audio_analysis_tpu.ops.common import compute_platform
-
-        if pallas_stft.supports(n_fft, hop) and compute_platform() == "tpu":
-            mag = pallas_stft.stft_magnitude_pallas(x, n_fft, hop, use_hann_window)
-            return mag if k_out is None else mag[..., :k_out]
-        fft_impl = "mx"
+    """Un-floored |STFT| via the selected implementation."""
     window = jnp.asarray(hann_window(n_fft)) if use_hann_window else jnp.ones(
         (n_fft,), dtype=jnp.float32
     )

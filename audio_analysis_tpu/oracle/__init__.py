@@ -2,7 +2,7 @@
 Float64 NumPy oracle: straight re-implementations of the reference's
 formulas, used as ground truth in unit tests and as the CPU baseline in
 bench.py. Deliberately simple and slow (slice-based, loop-based) — this is
-the algorithmic contract the TPU kernels must match within tolerance.
+the algorithmic contract the device kernels must match within tolerance.
 
 Formula sources (file:line in /root/reference):
 - Schroeder EDC: decay.py:115-170

@@ -6,7 +6,7 @@ Parallelism layer.
 - Device/host scale-out re-exports (the machinery lives with the engine it
   parallelises):
   - audio_analysis_tpu.engine.mesh        — single-host mesh, shard_map
-  - audio_analysis_tpu.engine.distributed — multi-host (DCN) bundle farms
+  - audio_analysis_tpu.engine.distributed — multi-host bundle farms
 """
 
 from audio_analysis_tpu.engine.distributed import (  # noqa: F401

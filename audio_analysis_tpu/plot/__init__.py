@@ -14,7 +14,15 @@ from typing import List, Optional, Tuple
 
 import os as _os
 
-import matplotlib
+try:
+    import matplotlib
+except ImportError as _exc:  # pragma: no cover — exercised in a subprocess test
+    raise ImportError(
+        "The plot paths need matplotlib, which is not installed. Install it "
+        "(pip install matplotlib), or use the engine paths, which write text "
+        "and JSON reports without it: `analyse.cli bundle --no-plots`, "
+        "`batch --no-plots`, `watch` without --plots."
+    ) from _exc
 
 # Headless-safe default WITHOUT killing interactive use: matplotlib.use()
 # would override an MPLBACKEND the user set (pyplot is imported right

@@ -128,8 +128,8 @@ def run_bundle_report(
     )
 
     # Template warmup rides the worker as the job(s) before the first real
-    # render: the per-kind template build (~seconds, BENCH_r03
-    # plots_per_kind first_job_seconds) overlaps the first tap's device
+    # render: the per-kind template build (~seconds, see plot_timings.json
+    # first_job_seconds) overlaps the first tap's device
     # compute instead of serialising in front of its figures. One job per
     # pool worker warms the whole pool; submitted lazily so a fully-cached
     # --resume run pays nothing. With a SYNCHRONOUS worker (no overlap
@@ -217,7 +217,7 @@ def run_bundle_report(
                         # the stable per-kind attribution. `seconds` is
                         # wall clock and inflates with GIL/core contention
                         # from the main thread's numpy + decode work
-                        # (docs/PERFORMANCE.md round-5 FR investigation).
+                        # (docs/PERFORMANCE.md, plot path).
                         "cpu_seconds": round(cpu, 4),
                     }
                     for kind, (seconds, jobs, first, cpu) in plot_timings.items()

@@ -4,8 +4,8 @@ matplotlib's global first-draw caches — font manager, Agg raster state,
 tight-bbox layout) BEFORE the first real tap renders.
 
 The bundle runner submits this as the first plot-worker job, so the
-per-kind template construction — measured at ~1.3 s for the spectrogram
-alone (BENCH_r03 plots_per_kind first_job_seconds) — runs on the render
+per-kind template construction — about a second of host time for the
+spectrogram alone (plot_timings.json first_job_seconds) — runs on the render
 thread while the first tap's device compute is still in flight, instead of
 serialising in front of it.
 

@@ -7,7 +7,7 @@ noise seeded via np.random.default_rng for repeatability.
 
 This module is the NumPy host API (signals are tiny — at most a few hundred
 thousand samples — and generation is not a hot path for single files).
-The TPU batch API, including the lax.scan Karplus–Strong and jit-compiled
+The device batch API, including the lax.scan Karplus–Strong and jit-compiled
 sweep synthesis used by the engine/bench, lives in signals/jaxgen.py.
 """
 

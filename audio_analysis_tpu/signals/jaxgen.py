@@ -3,7 +3,7 @@ JAX (device-side) signal generation.
 
 - karplus_strong_scan: the reference's per-sample Python feedback loop
   (signals.py:575-596) as a jit-compiled lax.scan carrying the delay-line
-  buffer. Same recurrence, compiled once, runs on TPU/CPU.
+  buffer. Same recurrence, compiled once, runs on any JAX backend.
 - log_sine_sweep: jit, elementwise exponential phase — batched via vmap.
 - synthetic_reverb_ir_batch: device-generated batch of exponentially
   decaying noise IRs with frequency-dependent decay, used by the bench and

@@ -1,6 +1,6 @@
 // Native audio I/O runtime for audio_analysis_tpu.
 //
-// The data-loading counterpart of the TPU engine: decodes WAV files
+// The data-loading counterpart of the device engine: decodes WAV files
 // (PCM16 / PCM24 / PCM32 / float32 / float64) to float32 and, for bundles,
 // decodes all taps in parallel worker threads directly into one padded
 // (B, N_max, C) host buffer ready for device upload — replacing the

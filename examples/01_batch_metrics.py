@@ -4,20 +4,13 @@ The CLI covers files on disk; this is the library path — e.g. IRs produced
 inside your own DSP test harness. One jit-compiled program computes every
 report metric for the whole batch.
 
-Run (host-only works fine):  AA_PLATFORM=cpu python examples/01_batch_metrics.py
+Run (host-only works fine):  JAX_PLATFORMS=cpu python examples/01_batch_metrics.py
 """
-
-import os
 
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo checkout
-
-if os.environ.get("AA_PLATFORM"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["AA_PLATFORM"])
 
 import numpy as np
 

@@ -6,20 +6,13 @@ ship — per-octave-band spectral centroid over time — from the shared STFT
 and the log-frequency binning matrix, still as ONE compiled program over
 a (B, C, N) batch.
 
-Run:  AA_PLATFORM=cpu python examples/02_custom_analysis_from_ops.py
+Run:  JAX_PLATFORMS=cpu python examples/02_custom_analysis_from_ops.py
 """
-
-import os
 
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo checkout
-
-if os.environ.get("AA_PLATFORM"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["AA_PLATFORM"])
 
 from functools import partial
 

@@ -1,12 +1,12 @@
 """Scale the fused engine over a device mesh (tap-data-parallel).
 
-On real hardware `make_mesh()` picks up every connected TPU chip; here the
+On real hardware `make_mesh()` picks up every card of the host; here the
 example forces a virtual 4-device CPU mesh (the standard fake-multichip
 setup) so it runs anywhere. The sharded step is a cached `jit(shard_map)`
 — per-tap metrics need no cross-device traffic, so scaling is linear in
 devices until the batch runs out.
 
-Run:  XLA_FLAGS=--xla_force_host_platform_device_count=4 AA_PLATFORM=cpu \
+Run:  XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \
           python examples/03_mesh_scaling.py
 """
 
@@ -18,11 +18,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo checkout
 
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=4")
-
-if os.environ.get("AA_PLATFORM"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["AA_PLATFORM"])
 
 import numpy as np
 

@@ -24,6 +24,10 @@ import numpy as np
 # not be on sys.path when invoked as `python scripts/make_example_gallery.py`
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+# CPU-pinned (set before jax is imported): the committed markdown must
+# regenerate identically on any machine, independent of accelerators
+os.environ["JAX_PLATFORMS"] = "cpu"
+
 SR = 48_000
 N = 1 << 18  # 5.46 s — the longest band RT60 (2.2 s) fully decays in-buffer
 SEED = 20260820
@@ -73,12 +77,6 @@ def main() -> None:
     out_dir = Path(sys.argv[1] if len(sys.argv) > 1 else
                    Path(__file__).resolve().parents[1] / "examples" / "gallery")
     out_dir.mkdir(parents=True, exist_ok=True)
-
-    # CPU-pinned: the committed markdown must regenerate identically on any
-    # machine, independent of accelerator availability (utils/platform.py)
-    from audio_analysis_tpu.utils.platform import pin_platform
-
-    pin_platform("cpu")
 
     from audio_analysis_tpu.io.wav import write_wav_pcm16
     from audio_analysis_tpu.report.report import run_report_from_wav_file

@@ -53,7 +53,7 @@ def main() -> None:
     parser.add_argument("--reference", default="/root/reference")
     args = parser.parse_args()
 
-    os.environ.setdefault("AA_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
     import golden_utils
     import parity_matrix
@@ -97,7 +97,7 @@ def main() -> None:
 
         print("# Cross-tool parity report\n")
         print(f"Reference: `{args.reference}`  |  "
-              f"backend: `{os.environ.get('AA_PLATFORM') or 'device default'}`\n")
+              f"backend: `{os.environ.get('JAX_PLATFORMS') or 'device default'}`\n")
         print("| variant | module | input | worst rel diff | tol (rel) | status |")
         print("|---|---|---|---|---|---|")
         failures = 0

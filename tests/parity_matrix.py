@@ -16,8 +16,7 @@ Two inputs:
 - "modal": a deterministic sum of exponentially-decaying sinusoids at
   third-octave centres (below). Used for the band-split and modal-cloud
   variants: narrowband decay fits on NOISY tails are chaotically
-  sensitive to f32 accumulation (docs/PERFORMANCE.md round-4 auto-guard
-  investigation), so cross-tool comparisons there need smooth
+  sensitive to f32 accumulation (docs/PERFORMANCE.md, fit sensitivity), so cross-tool comparisons there need smooth
   single-mode-per-band decays, where the fits are rock stable and the
   reliability gates have huge margins.
 
@@ -206,7 +205,7 @@ VARIANTS: List[Dict] = [
          settings={"metric": "t20", "log_bins_per_octave": 12}),
     # EDT (0..-10 dB) fits on slow-decay bins sit near zero slope, where
     # tiny f32 diffs move the huge extrapolated RT60s a few percent (the
-    # round-4 fit-chaos mode); counts and medians still pin parity tightly.
+    # fit-chaos mode); counts and medians still pin parity tightly.
     dict(name="mc_edt_4096", module="modalcloud", input="modal",
          settings={"metric": "edt", "n_fft": 4096, "hop_length": 256},
          tol=(5e-2, 5e-3)),
@@ -252,8 +251,8 @@ VARIANTS: List[Dict] = [
          tol=(2e-2, 5e-3)),
     # Looser tol: at order 32 (10 true poles) the summary's median radius
     # sits among the 22 NOISE poles, whose radii move ~3% between the
-    # reference's f64 fit and the real-TPU f32 Gram (chip-measured; the
-    # dominant pole agrees to 0.02%). 8e-2 still fails an unstable-count
+    # reference's f64 fit and an accelerator's f32 Gram (the dominant pole
+    # agrees to 0.02%). 8e-2 still fails an unstable-count
     # flip (integer step 1 >> 0.08).
     dict(name="zp_order32_ridge_zeros", module="zplane", input="damped",
          settings={"ar_order": 32, "ridge_lambda": 1e-5,

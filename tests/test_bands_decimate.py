@@ -165,10 +165,10 @@ def _banded_sine_batch(band_defs, n, taps=3):
 
 @pytest.mark.parametrize("band_mode", ["three", "third"])
 def test_decimation_movement_is_intrinsic_fit_sensitivity(band_mode):
-    """The round-4 auto-guard investigation, pinned as a test (adversarial
-    NOISE-excited decays — the PERF-note failure mode).
+    """The auto-guard investigation, pinned as a test (adversarial
+    NOISE-excited decays — the failure mode of marginal narrowband fits).
 
-    Measured ground truth (docs/PERFORMANCE.md round-4 note): no static
+    Measured ground truth (docs/PERFORMANCE.md): no static
     guard bounds decimated-vs-full fit movement on noisy narrowband EDCs —
     widening the support margin (divisor 4 -> 8 -> 16), capping the factor
     at 2, and an Euler-Maclaurin boundary correction all leave percent-level

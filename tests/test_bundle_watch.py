@@ -155,7 +155,7 @@ def test_watch_plots_rerenders_only_changed_taps(tmp_path):
 
 def test_watch_retries_transient_failures_then_gives_up(tmp_path):
     """A failing bundle is retried up to max_failures_per_bundle on later
-    polls (tunnel stalls are transient), then given up on; a CONTENT change
+    polls (IO hiccups are transient), then given up on; a CONTENT change
     resets the attempt budget."""
     import json
 

@@ -1,14 +1,13 @@
 """
-Device parity (SURVEY §4): the SAME jitted engine program run on the TPU
-and on the host CPU backend (computation follows the data's device) must
-agree within f32 tolerance on every headline metric. Catches
-backend-specific numeric drift (FFT implementations, fusion differences).
+Device parity (SURVEY §4): the SAME jitted engine program run on the
+default backend and on the host CPU backend (computation follows the
+data's device) must agree within f32 tolerance on every headline metric.
+Catches backend-specific numeric drift (FFT implementations, fusion
+differences).
 
-Skips silently to CPU-vs-CPU when no TPU is present (still exercises the
-two-placement path).
+Runs CPU-vs-CPU where the CPU is the default backend (still exercises the
+two-placement path); chip_smoke.py makes the same comparison on the card.
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -34,8 +33,7 @@ def test_engine_metrics_match_across_backends(small_batch):
     from audio_analysis_tpu.engine import EngineConfig, analyze_batch
 
     x, lengths = small_batch
-    # Pallas EDC is TPU-only; disable so both placements run the same math.
-    config = dataclasses.replace(EngineConfig(), use_pallas_edc=False)
+    config = EngineConfig()
 
     cpu = jax.devices("cpu")[0]
     out_cpu = analyze_batch(

@@ -126,8 +126,8 @@ def test_sharded_engine_matches_unsharded(tap_batch):
     sharded = analyze_batch_sharded(mesh, batch, lengths, config)
     local = analyze_bundle(batch, lengths, config, chunk_taps=8)
 
-    # sharded runs on the CPU mesh (jnp EDC), local on the default backend
-    # (TPU + Pallas EDC here): cross-platform f32 tolerance
+    # sharded runs on the CPU mesh, local on the default backend:
+    # cross-backend f32 tolerance
     np.testing.assert_allclose(
         np.asarray(sharded["t30_rt60"]), local["t30_rt60"], rtol=1e-3
     )
@@ -156,14 +156,11 @@ def test_sharded_engine_bands_decimate_matches_unsharded(tap_batch):
     # reference on the SAME backend as the mesh: this test pins shard_map
     # STRUCTURE (per-shard tracing of the static decimation groups), and
     # decimated narrowband fits amplify cross-backend f32 accumulation
-    # differences beyond any fixed tolerance (the round-4 sensitivity
-    # finding, docs/PERFORMANCE.md) — a TPU-vs-CPU comparison here flaked
-    # at 0.125% vs rtol 1e-3 with both sides individually correct
-    import dataclasses
-
-    local_config = dataclasses.replace(config, use_pallas_edc=False)
+    # differences beyond any fixed tolerance (the fit-sensitivity finding,
+    # docs/PERFORMANCE.md) — a cross-backend comparison here flaked at
+    # 0.125% vs rtol 1e-3 with both sides individually correct
     with jax.default_device(jax.devices("cpu")[0]):
-        local = analyze_bundle(batch, lengths, local_config, chunk_taps=8)
+        local = analyze_bundle(batch, lengths, config, chunk_taps=8)
     np.testing.assert_allclose(
         np.asarray(sharded["band_t30_rt60"]), local["band_t30_rt60"], rtol=1e-3
     )

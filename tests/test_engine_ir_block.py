@@ -1,5 +1,5 @@
 """
-Engine polish regressions (VERDICT r1 items 5/10):
+Engine polish regressions:
 - the engine emits IR-view stats (peak_abs) and the engine bundle summary
   contains the Impulse response block,
 - stereo-only diffusion metrics (corr0/IACC) are gated on C==2: a mono

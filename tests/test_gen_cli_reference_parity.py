@@ -57,7 +57,7 @@ def _run_gen(tmp: Path, which: str, out_sub: str, args) -> Path:
         cwd = tmp
     else:
         env = dict(os.environ)
-        env["AA_PLATFORM"] = "cpu"
+        env["JAX_PLATFORMS"] = "cpu"
         cwd = REPO_ROOT
     subprocess.run(
         [sys.executable, "-m", "gen.cli", "--output-dir", str(out), *args],

@@ -3,7 +3,7 @@ Property-based tests (hypothesis): randomised inputs for the precision-
 critical kernels and fuzzed bytes for the untrusted-input WAV parsers.
 
 Example counts are kept small: kernel cases run on the default backend
-(the dev TPU pays ~25 ms per fetch), parser cases are host-only and cheap.
+(one compile and fetch per case), parser cases are host-only and cheap.
 """
 
 import io

@@ -29,8 +29,8 @@ _ANY_NUM = re.compile(r"-?\d+(?:\.\d+)?")
 
 # (rel_tol, abs_tol) per module; group delay and fr sit on a different
 # (padded) FFT bin grid. Modal cloud measured byte-identical on CPU and
-# within 1e-3 on the real TPU backend (one digit of one p90, identical
-# point counts — round-5 measurement), so its tolerance is 1e-2 rel: tight
+# within 1e-3 on an accelerator backend (one digit of one p90, identical
+# point counts), so its tolerance is 1e-2 rel: tight
 # enough that a reliability-gate point-count flip of more than ±1 fails,
 # loose enough for cross-backend f32 drift with an order-of-magnitude
 # margin.

@@ -1,6 +1,6 @@
 """Sort-free exact percentiles (ops/selectq.py) vs np.nanpercentile.
 
-CPU-pinned pure-numerics checks (the TPU win is benchmarked, not
+CPU-pinned pure-numerics checks (speed is benchmarked on the card, not
 unit-tested here).
 """
 
